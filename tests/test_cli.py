@@ -112,7 +112,7 @@ class TestValidateCLI:
 
 
 class TestQualityPreset:
-    """--quality preset (VERDICT r3 item 4): one switch for the measured
+    """--quality preset: one switch for the measured
     best-quality configuration, with a measured-headroom auto mode."""
 
     def _captured_cfg(self, monkeypatch, argv):

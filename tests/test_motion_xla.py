@@ -40,15 +40,15 @@ def test_tiebreak_constant_pair():
 
 
 def test_lattice_bitwise_equal_to_tiled_subsample(rng):
-    from tpufg.kernels.motion import motion_search_tiled
+    # the per-pixel search (same separable rows-then-x box-sum order)
+    # subsampled to the lattice centres
     from tpufg.kernels.motion_xla import motion_search_lattice
 
     for r in (2, 4):
         base = random_frame(rng, 80, 144)
         prev = _chw(jnp.asarray(base[8:72, 8:136]))
         curr = _chw(jnp.asarray(base[6:70, 11:139]))
-        full = motion_search_tiled(prev, curr, block_size=8, search_radius=r,
-                                   exact_box=False, interpret=True)
+        full = motion_search_xla(prev, curr, block_size=8, search_radius=r)
         sub = np.asarray(full[:, 8::16, 8::16])
         lat = np.asarray(motion_search_lattice(prev, curr, grid=16,
                                                block_size=8, search_radius=r))

@@ -478,7 +478,7 @@ class TestShardedMotionModeMatrix:
     """Every motion_mode x --devices combination either works (interior
     parity vs the single-chip step) or fails at config time.  pyramid,
     learned and temporal-mv are pinned above; exhaustive and none here
-    (VERDICT r3 item 5 — these cells were previously untested)."""
+    (these cells were previously untested)."""
 
     def test_sharded_quality_preset_interior(self, devices, rng):
         """The full --quality preset (mv_grid 1 + subpel + mv_bias +

@@ -81,8 +81,7 @@ class TestIFNet2:
 
     def test_down4_mean_matches_chained_down2(self, rng):
         """_down4_mean is the chained 2x2 mean up to f32 re-association
-        (it exists because the chained reshape-mean lowered ~60x off
-        memory-bound on chip — see its docstring)."""
+        (one reduce_window — see its docstring)."""
         x = jnp.asarray(rng.random((2, 4, 32, 48)).astype("float32") * 255)
         a = rife._down4_mean(x)
         b = rife._down2_mean(rife._down2_mean(x))
@@ -481,9 +480,7 @@ class TestTrainCLI:
 
 class TestIFNet3:
     """v3: the streaming two-stage head (siamese cached per-frame
-    encoder, 13-ch stage-2, 8-px coarse warp) — 32.6 ms/pair = 61 output
-    fps at 4K on chip (tools/v2_speed_ladder.py), the config-5 rate
-    target at the hardest cell."""
+    encoder, 13-ch stage-2, 8-px coarse warp) — the config-5b head."""
 
     def test_interpolate_fast_dispatches_v3(self, rng):
         params = rife.init_params3(jax.random.PRNGKey(1), hidden=32)
@@ -504,10 +501,8 @@ class TestIFNet3:
         inline = rife.interpolate_fast3(params, prev, curr, 0.5)
         p4 = rife._down4_mean(prev[None])[0]
         c4 = rife._down4_mean(curr[None])[0]
-        f4p = rife.encode3(params, prev[None], dtype=jnp.bfloat16,
-                           fast=True)[0]
-        f4c = rife.encode3(params, curr[None], dtype=jnp.bfloat16,
-                           fast=True)[0]
+        f4p = rife.encode3(params, prev[None], dtype=jnp.bfloat16)[0]
+        f4c = rife.encode3(params, curr[None], dtype=jnp.bfloat16)[0]
         cached = rife.interpolate_fast3(params, prev, curr, 0.5, p4=p4,
                                         c4=c4, f4p=f4p, f4c=f4c)
         np.testing.assert_array_equal(np.asarray(inline),
@@ -614,7 +609,7 @@ class TestIFNet3:
 
 
 class TestV3Diff:
-    """v3d (round 5, VERDICT r4 item 2): stage 2 consumes the signed
+    """v3d (round 5): stage 2 consumes the signed
     warped difference — a 17-ch r_in — with a zero-pad warm start that
     is bit-identical to the seeding v3 head at step 0."""
 
@@ -744,8 +739,8 @@ class TestFlowTScaling:
     the motions FROM the midpoint (fp ≈ −V/2, fc ≈ +V/2 for pair velocity
     V).  A frame at time t needs fp·2t / fc·2(1−t) (rife._flow_t_scales).
     Before the r4 fix every in-between of a k>2 stream warped with the
-    midpoint flows (measured on chip as a 3.9 dB learned-row deficit at
-    --mult 3/4 vs k=2 — artifacts/tpu_campaign_r4d2 eval_mult logs).
+    midpoint flows (a 3.9 dB learned-row deficit at --mult 3/4 vs k=2 in
+    the natural-corpus evaluation).
 
     The fixture is analytic: a linear ramp translating with constant V,
     crafted trunk output holding the exact midpoint flows, so every tail

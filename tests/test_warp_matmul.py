@@ -1,4 +1,4 @@
-"""Production MXU warp path vs the Pallas kernel and the oracle."""
+"""Production block warp (warp_blend_matmul) vs the f32 oracle."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -6,13 +6,23 @@ import pytest
 
 from tests.conftest import random_frame
 from tpufg.kernels.resize import box_downsample2
-from tpufg.kernels.warp import warp_blend_block
 from tpufg.kernels.warp_matmul import warp_blend_matmul
 from tpufg.ops import warp_blend
 
 
 def _chw(x):
     return jnp.transpose(x, (2, 0, 1))
+
+
+def _hwc(x):
+    return jnp.transpose(x, (1, 2, 0))
+
+
+def _oracle_block(prev, curr, mvb, t, g=16):
+    """Per-pixel oracle with the block MV field upsampled block-constant."""
+    mvp = jnp.transpose(jnp.repeat(jnp.repeat(mvb, g, axis=1), g, axis=2),
+                        (1, 2, 0))
+    return _chw(warp_blend(_hwc(prev), _hwc(curr), mvp, t))
 
 
 @pytest.fixture
@@ -23,13 +33,13 @@ def frames(rng):
 
 class TestWarpMatmul:
     @pytest.mark.parametrize("t", [0.0, 0.25, 0.5, 1.0])
-    def test_matches_pallas_kernel(self, rng, frames, t):
+    def test_matches_block_constant_oracle(self, rng, frames, t):
         prev, curr = frames
         mv = jnp.asarray(
             rng.uniform(-15, 15, (2, 4, 16)).astype(np.float32))
         a = warp_blend_matmul(prev, curr, mv, t)
-        b = warp_blend_block(prev, curr, mv, factor=t)
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6)
+        b = _oracle_block(prev, curr, mv, t)
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
 
     def test_matches_oracle_uniform(self, rng, frames):
         prev, curr = frames
@@ -55,9 +65,12 @@ class TestWarpMatmul:
         mv = jnp.asarray(rng.uniform(-5, 5, (2, 4, 60)).astype(np.float32))
         out = warp_blend_matmul(prev, curr, mv, 0.5)
         assert out.shape == (4, 64, 960)
-        # must agree with the Pallas kernel (which has no width restriction)
-        ref = warp_blend_block(prev, curr, mv, factor=0.5)
-        np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-6)
+        # the edge-pad + crop must not disturb the oracle's semantics.  The
+        # oracle samples through normalized uv (x = u*960 - 0.5), whose f32
+        # round trip moves sample positions by up to ulp(960) = 6e-5 px,
+        # hence the bound (the block warp adds integer offsets exactly)
+        ref = _oracle_block(prev, curr, mv, 0.5)
+        np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-4)
 
     def test_integer_offsets_bitwise(self, frames):
         """The integer fast path must be BITWISE the general path on even
@@ -142,7 +155,94 @@ class TestWarpMatmul:
             warp_blend_matmul(prev, curr, jnp.zeros((2, 3, 3)), 0.5)
 
 
+class TestAgainstOracle:
+    """The shapes and MV patterns the retired block-warp kernel's suite
+    pinned, now held directly against the oracle (32x128 frames)."""
+
+    @pytest.fixture
+    def small(self, rng):
+        return (_chw(jnp.asarray(random_frame(rng, 32, 128))),
+                _chw(jnp.asarray(random_frame(rng, 32, 128))))
+
+    @pytest.mark.parametrize("mvxy,t", [
+        ((3.25, -2.5), 0.5),
+        ((0.0, 0.0), 0.25),
+        ((-7.75, 6.5), 0.75),
+        ((16.0, -16.0), 0.5),   # full reference search radius
+    ])
+    def test_uniform_mv_matches_perpixel_oracle(self, small, mvxy, t):
+        prev, curr = small
+        mvb = jnp.broadcast_to(
+            jnp.array(mvxy, jnp.float32)[:, None, None], (2, 2, 8))
+        out = warp_blend_matmul(prev, curr, mvb, t)
+        ref = _oracle_block(prev, curr, mvb, t)
+        np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
+                                   atol=1e-5)
+
+    @pytest.mark.parametrize("t", [0.0, 1.0])
+    def test_endpoint_factor_is_a_source_frame(self, small, t):
+        prev, curr = small
+        out = warp_blend_matmul(prev, curr, jnp.zeros((2, 2, 8)), t)
+        np.testing.assert_allclose(np.asarray(out),
+                                   np.asarray(curr if t else prev),
+                                   atol=1e-6)
+
+    def test_oob_transparent_black(self):
+        # reference-radius motion at t=0.5 pushes border samples off-image
+        ones = jnp.ones((4, 32, 128), jnp.float32)
+        mv = jnp.full((2, 2, 8), 16.0, jnp.float32)
+        out = np.asarray(warp_blend_matmul(ones, ones, mv, 0.5))
+        assert out[:, 0, 0].max() <= 0.5 + 1e-6       # one tap blanked
+        assert np.allclose(out[:, 16, 64], 1.0)       # interior intact
+        ref = np.asarray(_oracle_block(ones, ones, mv, 0.5))
+        np.testing.assert_allclose(out, ref, atol=1e-6)
+
+    def test_varying_block_mvs(self, small):
+        prev, curr = small
+        mvb = jnp.asarray(np.random.default_rng(11).integers(
+            -4, 5, size=(2, 2, 8)).astype(np.float32))
+        out = warp_blend_matmul(prev, curr, mvb, 0.5)
+        ref = _oracle_block(prev, curr, mvb, 0.5)
+        np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
+                                   atol=1e-5)
+
+    def test_single_mode_integer_shift(self, small):
+        prev, _ = small
+        mv = jnp.full((2, 2, 8), 4.0, jnp.float32)
+        out = np.asarray(warp_blend_matmul(prev, prev, mv, single=True))
+        # interior: out[p] = prev[p + 4] (edge-clamped outside)
+        np.testing.assert_allclose(out[:, :-4, :-4],
+                                   np.asarray(prev)[:, 4:, 4:], atol=1e-6)
+
+
+def _banded_box2(x):
+    """The banded two-pass form Ry @ x @ Rx (0.5 taps), in numpy."""
+    c, h, w = x.shape
+    ry = np.zeros((h // 2, h), np.float32)
+    ry[np.arange(h // 2), 2 * np.arange(h // 2)] = 0.5
+    ry[np.arange(h // 2), 2 * np.arange(h // 2) + 1] = 0.5
+    rx = np.zeros((w, w // 2), np.float32)
+    rx[2 * np.arange(w // 2), np.arange(w // 2)] = 0.5
+    rx[2 * np.arange(w // 2) + 1, np.arange(w // 2)] = 0.5
+    return np.stack([ry @ x[i] @ rx for i in range(c)])
+
+
 class TestBoxDownsample:
+    @pytest.mark.parametrize("shape", [(4, 36, 150), (3, 2, 2),
+                                       (1, 1088, 64)])
+    def test_bitwise_vs_banded_formula(self, rng, shape):
+        x = rng.random(shape).astype(np.float32)
+        out = np.asarray(box_downsample2(jnp.asarray(x)))
+        np.testing.assert_array_equal(out, _banded_box2(x))
+
+    def test_bf16_keeps_dtype(self, rng):
+        x = jnp.asarray(rng.random((4, 16, 32)).astype(np.float32))
+        out = box_downsample2(x.astype(jnp.bfloat16))
+        assert out.dtype == jnp.bfloat16 and out.shape == (4, 8, 16)
+        ref = _banded_box2(np.asarray(x.astype(jnp.bfloat16), np.float32))
+        np.testing.assert_allclose(np.asarray(out, np.float32), ref,
+                                   atol=4e-3)
+
     def test_matches_reshape_mean(self, rng):
         x = jnp.asarray(rng.random((4, 36, 150), np.float32))
         ref = np.asarray(x).reshape(4, 18, 2, 75, 2).mean(axis=(2, 4))

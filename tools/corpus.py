@@ -51,6 +51,8 @@ def main(argv=None):
                         "exposure flicker, sensor-noise mismatch, "
                         "perspective background (Scene photo=True)")
     args = p.parse_args(argv)
+    from tpufg.utils.compile_cache import setup_compile_cache
+    setup_compile_cache()
 
     from tpufg.io.sinks import open_sink
 

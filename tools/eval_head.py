@@ -26,6 +26,9 @@ def main():
                          "training's start-of-stream crops")
     args = ap.parse_args()
 
+    from tpufg.utils.compile_cache import setup_compile_cache
+    setup_compile_cache()
+
     import jax.numpy as jnp
 
     from tpufg.config import EngineConfig, resolve_sizes

@@ -1,14 +1,13 @@
 """Per-kernel device-time breakdown of the production interp step.
 
-Runs the 1080p->4K pyramid step on the attached chip under the JAX
-profiler and aggregates per-op device durations from the trace ("TensorFlow
-Ops" / XLA Ops lanes), so perf work targets the actual hot ops rather than
-guesses.  Dev tool — not part of the shipped package.
+Runs the 1080p->4K pyramid step on the attached GPU under the JAX
+profiler and aggregates per-kernel device durations from the trace's
+device planes (jax.profiler.ProfileData), so perf work targets the actual
+hot kernels rather than guesses.  Dev tool — not part of the shipped
+package.
 """
 
 import glob
-import gzip
-import json
 import os
 import sys
 import tempfile
@@ -24,6 +23,9 @@ def main(in_w=1920, in_h=1080, out_mult=2, n=24, mode="pyramid", k=2,
          model_path=None):
     import jax
     import jax.numpy as jnp
+
+    from tpufg.utils.compile_cache import setup_compile_cache
+    setup_compile_cache()
 
     from tpufg.config import EngineConfig, resolve_sizes
     from tpufg.engine.pipeline import make_interp_step
@@ -77,89 +79,57 @@ def main(in_w=1920, in_h=1080, out_mult=2, n=24, mode="pyramid", k=2,
     pair_seq = iter(pairs) if out_mult == 1 else itertools.cycle(pairs)
 
     out = step(*next(pair_seq))
-    _ = np.asarray(jax.tree_util.tree_leaves(out)[0][0:1, 0:1])
+    jax.block_until_ready(out)
 
     t0 = time.perf_counter()
     last = None
     for i in range(n):
         last = step(*next(pair_seq))
-    _ = np.asarray(jax.tree_util.tree_leaves(last)[0][0:1, 0:1])
+    jax.block_until_ready(last)
     dt = time.perf_counter() - t0
-    print(f"steady-state: {dt / n * 1e3:.2f} ms/pair", file=sys.stderr)
+    print(f"steady-state: {dt / n * 1e3:.3f} ms/pair", file=sys.stderr)
 
     trace_dir = tempfile.mkdtemp(prefix="tpufg_prof_")
+    n_tr = 8
     jax.profiler.start_trace(trace_dir)
-    for i in range(8):
+    for i in range(n_tr):
         last = step(*next(pair_seq))
-    _ = np.asarray(jax.tree_util.tree_leaves(last)[0][0:1, 0:1])
+    jax.block_until_ready(last)
     jax.profiler.stop_trace()
 
     import re
 
-    files = glob.glob(f"{trace_dir}/**/*.trace.json.gz", recursive=True)
-    ev = json.load(gzip.open(sorted(files)[-1]))
-    lanes = {}
-    for e in ev["traceEvents"]:
-        if e.get("ph") == "M" and e.get("name") == "thread_name":
-            lanes[(e["pid"], e["tid"])] = e["args"].get("name", "")
-
-    shown_args = 0
+    from tpufg.utils.tracing import module_durations_ms
+    # the device-truth step time: per-invocation module durations (what
+    # bench.py's p99 and bench_matrix's device column report); the
+    # per-kernel table below locates fusions, not source lines
+    mods = module_durations_ms(trace_dir)
+    dom = [d for name, ds in mods.items() if name.startswith("jit_step")
+           for d in ds]
+    if len(dom) != n_tr:
+        raise RuntimeError(f"trace holds {len(dom)} step invocations for "
+                           f"{n_tr} traced steps")
+    print(f"device module p50 {float(np.percentile(dom, 50)):.3f} "
+          f"ms/step over {len(dom)} invocations")
+    files = glob.glob(f"{trace_dir}/**/*.xplane.pb", recursive=True)
+    data = jax.profiler.ProfileData.from_file(sorted(files)[-1])
     agg = defaultdict(float)
     cnt = defaultdict(int)
-    scope = defaultdict(float)
     total = 0.0
-    for e in ev["traceEvents"]:
-        lane = lanes.get((e.get("pid"), e.get("tid")), "")
-        if e.get("ph") != "X" or lane != "XLA Ops":
+    for plane in data.planes:
+        if not plane.name.startswith("/device:"):
             continue
-        name = re.sub(r"[.\d]+$", "", e.get("name", ""))
-        ms = e.get("dur", 0) / 1e3
-        agg[name] += ms
-        cnt[name] += 1
-        total += ms
-        args = e.get("args", {}) or {}
-        # attribute to the deepest repo source line in the stack
-        st = args.get("source_stack", "")
-        src = "?"
-        for line in str(st).splitlines():
-            if "/tpufg/" in line:
-                src = line.strip().rsplit(":", 1)[0]
-                break
-        scope[src] += ms
-    rows = sorted(agg.items(), key=lambda kv: -kv[1])
-    # the device-truth step time: per-invocation module durations (what
-    # bench.py's p99 and bench_matrix's device column report) — per-op
-    # and per-LINE tables below locate fusions, NOT lines; confirm any
-    # "duplicated work" hypothesis with a counterfactual measurement
-    # (docs/ROUND4.md, the warp-prep wash)
-    from tpufg.utils.tracing import module_durations_ms
-    mods = module_durations_ms(trace_dir)
-    dom = max(mods.values(), key=len, default=None)
-    if dom:
-        print(f"device module p50 {float(np.percentile(dom, 50)):.2f} "
-              f"ms/step over {len(dom)} invocations")
-    print(f"XLA Ops total {total:.2f} ms over 8 steps "
-          f"({total / 8:.2f} ms/step)")
-    for name, ms in rows[:30]:
+        for line in plane.lines:
+            for ev in line.events:
+                name = re.sub(r"[._\d]+$", "", ev.name)
+                ms = ev.duration_ns / 1e6
+                agg[name] += ms
+                cnt[name] += 1
+                total += ms
+    print(f"kernel time total {total:.3f} ms over 8 steps "
+          f"({total / 8:.3f} ms/step)")
+    for name, ms in sorted(agg.items(), key=lambda kv: -kv[1])[:30]:
         print(f"{ms / 8:8.3f} ms/step  x{cnt[name] / 8:<6.1f} {name[:100]}")
-    # anonymous copies by shape (relayout forensics)
-    shapes = defaultdict(float)
-    scnt = defaultdict(int)
-    for e in ev["traceEvents"]:
-        lane = lanes.get((e.get("pid"), e.get("tid")), "")
-        if e.get("ph") != "X" or lane != "XLA Ops":
-            continue
-        if not re.match(r"copy[.\d]*$", e.get("name", "")):
-            continue
-        sh = (e.get("args", {}) or {}).get("shape_with_layout", "?")
-        shapes[sh] += e.get("dur", 0) / 1e3
-        scnt[sh] += 1
-    print("--- copies by shape ---")
-    for sh, ms in sorted(shapes.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"{ms / 8:8.3f} ms/step  x{scnt[sh] / 8:<6.1f} {sh[:100]}")
-    print("--- by source line ---")
-    for name, ms in sorted(scope.items(), key=lambda kv: -kv[1])[:30]:
-        print(f"{ms / 8:8.3f} ms/step  {name[:110]}")
 
 
 if __name__ == "__main__":

@@ -45,6 +45,9 @@ def main(argv=None):
                    help="semicolon-separated lo,hi,floor triples")
     args = p.parse_args(argv)
 
+    from tpufg.utils.compile_cache import setup_compile_cache
+    setup_compile_cache()
+
     import jax.numpy as jnp
 
     from tpufg.config import EngineConfig, resolve_sizes

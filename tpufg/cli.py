@@ -2,15 +2,15 @@
 
 Mirrors the reference binary's flag surface exactly (src/main.cpp:8-19
 PrintUsage; parsing main.cpp:28-54) and replaces the X11 ``window-id``
-positional with an INPUT spec (file / y4m / synthetic / stdin), since a TPU
-host has no display server.  Reference semantics preserved:
+positional with an INPUT spec (file / y4m / synthetic / stdin), since an
+accelerator host has no display server.  Reference semantics preserved:
 
 - defaults: --target-fps 60, interpolation on, --interpolation-factor 0.5
 - input size auto-detected from the source when not given (main.cpp:67-74)
 - missing output dimension completed by aspect ratio (main.cpp:76-90)
 - missing INPUT -> usage + exit 1 (main.cpp:57-60)
 
-TPU-build additions: --output sink spec, --frames limit, --no-pacing,
+Additions over the reference: --output sink spec, --frames limit, --no-pacing,
 --motion-mode, --precision, --dtype, and the reference's hardcoded kernel
 constants exposed (--lanczos-a, --block-size, --search-radius).
 """
@@ -29,8 +29,8 @@ from tpufg.utils.logging import get_logger
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpufg",
-        description="TPU-native real-time upscaling and motion-compensated "
-                    "frame interpolation",
+        description="Real-time upscaling and motion-compensated frame "
+                    "interpolation on the GPU",
         add_help=False,
     )
     p.add_argument("--help", action="help",
@@ -57,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--interpolation-factor", type=float, default=0.5,
                    metavar="F",
                    help="Interpolation blend factor (0.0-1.0, default: 0.5)")
-    # TPU-build surface
+    # additions over the reference
     p.add_argument("--output", default=None, metavar="SINK",
                    help="output: raw file, *.y4m, *.mp4/*.avi (OpenCV "
                         "encode), dir/ (PNGs), 'null' (default: null)")
@@ -76,7 +76,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run unpaced (benchmark mode)")
     p.add_argument("--devices", type=int, default=0, metavar="N",
                    help="multi-chip offline transcode over N devices "
-                        "(frame rows sharded with ICI halo exchange; "
+                        "(frame rows sharded with row-halo exchange; "
                         "default: single-chip streaming)")
     p.add_argument("--dp", type=int, default=1, metavar="D",
                    help="with --devices: batch D consecutive frame pairs "
@@ -151,7 +151,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve a live preview of the output at "
                         "http://HOST:PORT/ (any browser is the display — "
                         "the reference's SDL window, src/scaler.cpp:538-609,"
-                        " re-hosted for a headless TPU node).  Default "
+                        " re-hosted for a headless accelerator node).  Default "
                         "host 127.0.0.1; composes with any --output")
     p.add_argument("--temporal-mv", action="store_true",
                    help="seed each pair's motion search with the previous "
@@ -181,6 +181,9 @@ def main(argv: Optional[list[str]] = None) -> int:
         log.error("No input specified")
         parser.print_help()
         return 1
+
+    from tpufg.utils.compile_cache import setup_compile_cache
+    setup_compile_cache()
 
     cfg = EngineConfig(
         input_width=args.input_width,

@@ -49,7 +49,7 @@ class EngineConfig:
     search_radius: int = 16       # frame_manager.cpp:333 (float there, integer grid)
     fps_window: int = 60          # scaler.cpp:431
 
-    # --- TPU-build-specific knobs (no reference equivalent) ---
+    # --- knobs with no reference equivalent ---
     # compute dtype for the production path; the parity path is always f32
     dtype: str = "bf16"           # {"bf16", "f32"}
     # motion estimation strategy: "exhaustive" is the parity kernel
@@ -172,10 +172,10 @@ def apply_quality_preset(cfg: EngineConfig,
 
     Equivalent to ``--mv-grid 1 --subpel --mv-bias 0.1 --mv-filter
     --mc-fallback`` — the per-pixel OBMC warp + sub-pel MV refinement +
-    aperture-stabilizing cost bias + outlier median (measured r3: 37.8 dB
-    on the shear corpus vs 21.5 dB at the 16-px latency default, at ~116
-    output fps 1080p->4K — ~2x the 60-fps target, which is why a preset
-    can afford it) + the adaptive MC->crossfade fallback (r4: the piece
+    aperture-stabilizing cost bias + outlier median (37.8 dB on the shear
+    corpus vs 21.5 dB at the 16-px latency default; it costs more device
+    time per pair, which is why ``auto`` checks the rate first) + the
+    adaptive MC->crossfade fallback (the piece
     that takes the preset past crossfade on PSNR as well as SSIM —
     37.57 dB vs crossfade's 34.33 on the rich corpus at 320x192, SSIM
     0.9779 vs 0.9355).

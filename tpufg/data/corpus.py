@@ -85,14 +85,14 @@ class Scene:
     """One shot: background + two occluding movers, all subpixel.
 
     ``rich=True`` (round 4) adds the motion classes the original corpus
-    was thinnest on (VERDICT r3 item 6): the first mover ROTATES about
+    was thinnest on: the first mover ROTATES about
     its center (non-translational block motion — no single translation
     explains its blocks), a THIN BAR occluder sweeps the frame (blocks
     straddling it see two motions at once), and a REPEATED diagonal
     grating rides the background (the aperture trap: every period-offset
     displacement matches equally well).  All remain analytic in float t.
 
-    ``photo=True`` (round 5, VERDICT r4 item 4) adds the PHOTOMETRIC
+    ``photo=True`` (round 5) adds the PHOTOMETRIC
     failure axes real video has and the geometric corpus lacked:
 
     - **motion blur** — box-shutter integration along the analytic

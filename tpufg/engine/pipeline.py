@@ -11,7 +11,9 @@ missing one between the motion and interpolate dispatches
 (frame_manager.cpp:344-366, latent bug #11).
 
 Two precision modes:
-- "fast": Pallas kernels, bf16 or f32 (production; SSIM >= 0.999 contract)
+- "fast": the production path — plain XLA ops plus the exhaustive-search
+  Triton kernel; ``dtype`` bf16 or f32 selects the warp/head operand
+  precision (SSIM >= 0.999 contract between the two)
 - "exact": the jnp f32 oracle ops end to end (bit-for-bit the GLSL spec)
 
 Motion modes mirror BASELINE.json configs: "none" (pure cross-fade,
@@ -31,7 +33,8 @@ from tpufg.config import EngineConfig
 from tpufg.kernels.convert import (frames_to_planar, planar_to_frames,
                                    planar_to_i32)
 from tpufg.kernels.lanczos import lanczos_scale_packed
-from tpufg.kernels.motion import motion_search_sites, motion_search_tiled
+from tpufg.kernels.motion import motion_search_sites
+from tpufg.kernels.motion_xla import motion_search_xla
 from tpufg.kernels.warp_matmul import warp_blend_matmul
 from tpufg.models.pyramid import pyramid_motion_search
 from tpufg.ops import oracle
@@ -81,12 +84,11 @@ def make_scale_step(cfg: EngineConfig, wire: str = "u8",
             # the UNORM8 round-trip is exact (round(255*(k/255)) == k), so
             # the output bytes ARE the input bytes — pass through
             return to_y4m(frame_u8) if to_y4m else frame_u8
-        # storage/elementwise stay f32 (bf16 storage costs ~1 uint8 code);
-        # dt only selects the MXU operand precision
+        # the resample runs in f32 whatever cfg.dtype says (bf16 storage
+        # costs ~1 uint8 code; the pass is memory-bound anyway)
         planar = frames_to_planar(frame_u8, F32)
-        # fused scale+quantize+pack: final wire bytes leave the kernel
+        # scale fused with quantize+pack: final wire bytes
         out = lanczos_scale_packed(planar, out_h, out_w, a,
-                                   compute_dtype=dt,
                                    raw_i32=i32 or to_y4m is not None)
         return to_y4m(out) if to_y4m else out
 
@@ -120,7 +122,6 @@ def make_exact_scale_step(cfg: EngineConfig) -> Callable:
 
 def interp_planar(p, c, *, mode: str, factors, dt, block_size: int,
                   search_radius: int, model_params=None,
-                  interpret: bool | None = None,
                   skip_finest_refine: int = 1, mv_grid: int = MV_GRID,
                   subpel: bool = False, mv_bias: float = 0.0,
                   mv_filter: bool = False,
@@ -130,7 +131,8 @@ def interp_planar(p, c, *, mode: str, factors, dt, block_size: int,
                   scene_cut_axis: str | None = None,
                   mv_seed=None, return_mv: bool = False,
                   motion_skip_alpha: bool = False,
-                  q_seed=None, return_q: bool = False):
+                  q_seed=None, return_q: bool = False,
+                  site_search: Callable = motion_search_sites):
     """The production interpolation core, shared by the single-chip step and
     the multi-chip sharded step (tpufg.parallel.spatial) so multi-chip runs
     the SAME math per shard.
@@ -167,6 +169,10 @@ def interp_planar(p, c, *, mode: str, factors, dt, block_size: int,
     distance term is then exactly 0.0 for every candidate, and since
     adding 0.0f is exact, every cost — and the MV field — is BITWISE the
     4-channel result (tested) at ~25% less search arithmetic.
+
+    ``site_search``: the exhaustive lattice-site search of block size 8
+    (default the Triton kernel); any function with its signature and
+    contract, e.g. a plain-XLA competitor timed against it.
     """
     _, h, w = p.shape
     interps = []
@@ -210,13 +216,13 @@ def interp_planar(p, c, *, mode: str, factors, dt, block_size: int,
             import jax.numpy as _jnp
             c4 = rife._down4_mean(cp[None])[0]
             f4c = rife.encode3(model_params, cp[None],
-                               dtype=_jnp.bfloat16, fast=True)[0]
+                               dtype=_jnp.bfloat16)[0]
             if q_seed is not None:
                 p4, f4p = q_seed
             else:
                 p4 = rife._down4_mean(pp[None])[0]
                 f4p = rife.encode3(model_params, pp[None],
-                                   dtype=_jnp.bfloat16, fast=True)[0]
+                                   dtype=_jnp.bfloat16)[0]
             # the trunk is t-independent: ONE trunk per pair, and
             # tails_fast shares the per-pair warp prep across the k-1
             # time points (k-1 t-scaled warps at --fps-multiplier k)
@@ -228,7 +234,7 @@ def interp_planar(p, c, *, mode: str, factors, dt, block_size: int,
             return (interps, (c4, f4c)) if return_q else interps
         if rife.is_v2(model_params):
             # v2 stage-2 quarter frames: curr's is computed ONCE here
-            # (~4.5 ms per 4K frame); prev's comes from the threaded
+            # prev's comes from the threaded
             # stream cache when the engine provides it (q_seed = last
             # step's q_out — bitwise-identical to recomputing, same
             # function on the same frame)
@@ -260,40 +266,15 @@ def interp_planar(p, c, *, mode: str, factors, dt, block_size: int,
         mv = pyramid_motion_search(
             mp, mc, levels=PYR_LEVELS, base_radius=4,
             refine_radius=2, block_size=block_size, grid=MV_GRID,
-            skip_finest_refine=skip_finest_refine, interpret=interpret,
+            skip_finest_refine=skip_finest_refine,
             seed=mv_seed, bias=mv_bias)
-    else:  # exhaustive parity kernel, subsampled to the MV lattice.
-        # r3 history: 64x512 tiles + 3-wide roll chunks took the per-pixel
-        # kernel 133.5 -> 98.9 ms at 1080p r=16; two early lattice-output
-        # attempts were dead ends (a site-row Pallas kernel using SUBLANE
-        # reshapes/slices of non-contiguous values MISCOMPILED on real
-        # hardware twice while passing interpret mode, and a pure-XLA
-        # band decomposition compiled for >8 minutes at 64x128).  The
-        # shipping motion_search_sites kernel avoids the miscompile class
-        # by pre-stacking the prev row-bands in XLA and indexing them by
-        # BAND (a leading axis) in-kernel: bitwise the per-pixel field's
-        # site rows, 41 vs 98 ms at 1080p r=16 (kernels/motion.py).
-        chunk = 3 if (2 * search_radius + 1) % 3 == 0 else 1
-        if block_size == 8:
-            # tile_w derived from the radius so the sites scratch stays
-            # inside the VMEM budget (1024 at the reference r=16; narrower
-            # for the large radii validate() accepts — see sites_tile_w)
-            from tpufg.kernels.motion import sites_tile_w
-            mv_rows = motion_search_sites(
-                mp, mc, block_size=block_size,
-                search_radius=search_radius, grid=MV_GRID,
-                interpret=interpret,
-                tile_w=sites_tile_w(search_radius, n_ch=mp.shape[0]),
-                dx_chunk=chunk)
-            mv = mv_rows[:, :, MV_GRID // 2::MV_GRID]
-        else:  # non-reference block sizes keep the per-pixel kernel
-            mv_px = motion_search_tiled(mp, mc, block_size=block_size,
-                                        search_radius=search_radius,
-                                        exact_box=False,
-                                        interpret=interpret,
-                                        tile_h=64, tile_w=512,
-                                        dx_chunk=chunk)
-            mv = mv_px[:, MV_GRID // 2::MV_GRID, MV_GRID // 2::MV_GRID]
+    elif block_size == 8:  # exhaustive parity search at the MV sites
+        mv = site_search(mp, mc, block_size=block_size,
+                         search_radius=search_radius, grid=MV_GRID)
+    else:  # non-reference block sizes: per-pixel XLA search, subsampled
+        mv_px = motion_search_xla(mp, mc, block_size=block_size,
+                                  search_radius=search_radius)
+        mv = mv_px[:, MV_GRID // 2::MV_GRID, MV_GRID // 2::MV_GRID]
     # the warp clamps MVs to its static reach: the pyramid's own bound by
     # default, extended to the temporal clamp + pyramid reach when seeded
     r_warp = max(search_radius, 8)
@@ -367,7 +348,8 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
                      model_params=None, wire: str = "u8",
                      sink_wire: str = "rgba",
                      motion_skip_alpha: bool = False,
-                     q_feed: bool = False) -> Callable:
+                     q_feed: bool = False,
+                     site_search: Callable = motion_search_sites) -> Callable:
     """(prev_u8, curr_u8) -> (interp_scaled_u8, ..., curr_scaled_u8).
 
     The fps-multiplying streaming step.  With cfg.fps_multiplier == k it
@@ -380,7 +362,7 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
     ``wire="i32"``: identical bytes as packed int32 [H, W] RGBA lanes at
     both boundaries (fast precision only) — the host views uint8 frames
     as int32 for free, and the step skips the on-device u8<->i32 bitcast
-    relayouts (~0.5 ms/pair at 1080p->4K).
+    relayouts.
 
     ``motion_skip_alpha``: drop alpha from motion estimation (fast path
     only; bitwise-equal MV field when both frames carry the same constant
@@ -392,11 +374,13 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
     ``q_seed`` — prev's quarter-res stage-2 frame (donated) — and
     returns curr's as an extra trailing output, so the runner threads
     it between pairs and each frame is box-downsampled ONCE instead of
-    twice (~4.5 ms per 4K frame; see rife._down4_mean).  Bitwise-
+    twice (see rife._down4_mean).  Bitwise-
     identical outputs (the cache is the same function on the same
     frame).  Opt-in so the 2-arg step API stays stable for tools; a
     no-op request (v1 head, exact path) is silently dropped.  Initial
     seed: ``make_q_init(cfg)``.
+
+    ``site_search``: see :func:`interp_planar`.
     """
     out_h, out_w = cfg.output_height, cfg.output_width
     t = cfg.interpolation_factor
@@ -459,7 +443,7 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
         return step
 
     def body(prev_u8, curr_u8, mv_seed=None, q_seed=None):
-        # f32 storage end to end; dt picks matmul operand precision only
+        # f32 storage end to end; dt picks warp/head operand precision
         p = frames_to_planar(prev_u8, F32)
         c = frames_to_planar(curr_u8, F32)
         _, h, w = p.shape
@@ -475,7 +459,8 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
                             scene_cut_threshold=cfg.scene_cut_threshold,
                             mv_seed=mv_seed, return_mv=temporal,
                             motion_skip_alpha=motion_skip_alpha,
-                            q_seed=q_seed, return_q=qfeed)
+                            q_seed=q_seed, return_q=qfeed,
+                            site_search=site_search)
         mv_out = q_out = None
         if temporal:
             interps, mv_out = res
@@ -483,23 +468,21 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
             interps, q_out = res
         else:
             interps = res
-        # separate scale calls per output (a stacked-channel single call
-        # measured ~1.3 ms slower: the concat materializes both frames)
+        # separate scale calls per output (a stacked-channel call would
+        # materialize the concatenated frames)
         if (out_h, out_w) == (h, w):
-            # identity resample (see make_scale_step): skip the kernel —
-            # the 4K->4K fps-doubling config spends ~3 ms/pair here
+            # identity resample (see make_scale_step): skip the resample
             pack = planar_to_i32 if i32 else planar_to_frames
         else:
-            # fused scale+quantize+pack: the f32 scaled intermediate and
-            # the channel transpose never touch HBM
+            # scale fused with quantize+pack: the vertical pass writes the
+            # final wire bytes, no f32 scaled frame or channel transpose
             pack = lambda x: lanczos_scale_packed(x, out_h, out_w, a,
-                                                  compute_dtype=dt,
                                                   raw_i32=i32)
         outs = [pack(x) for x in interps]
         if (out_h, out_w) == (h, w):
             # the scaled current frame at identity size is byte-identical
             # to the input (exact UNORM8 round-trip) — pass it through
-            # instead of repacking the planar form (~1 ms/pair at 4K)
+            # instead of repacking the planar form
             outs.append(curr_u8)
         else:
             outs.append(pack(c))
@@ -533,8 +516,7 @@ def make_interp_step(cfg: EngineConfig, precision: str = "fast",
     return step
 
 
-def make_q_init(cfg: EngineConfig, interpret: bool | None = None,
-                model_params=None):
+def make_q_init(cfg: EngineConfig, model_params=None):
     """Jit'd frame -> the learned head's stream-cache seed, replicating
     the padded learned path EXACTLY (frames_to_planar -> edge pad to the
     16-px lattice -> rife._down4_mean), so seeding a q_feed step with it
@@ -555,8 +537,8 @@ def make_q_init(cfg: EngineConfig, interpret: bool | None = None,
         if not v3:
             return q4
         import jax.numpy as _jnp
-        return (q4, rife.encode3(model_params, pp, dtype=_jnp.bfloat16,
-                                 fast=True)[0])
+        return (q4, rife.encode3(model_params, pp,
+                                 dtype=_jnp.bfloat16)[0])
 
     return q_init
 

@@ -37,6 +37,7 @@ class DeviceIngestRing:
         self._it: Iterator[np.ndarray] = iter(frames)
         self._depth = depth
         self._sync = sync_upload
+        self._host_backend = jax.default_backend() == "cpu"
         self._q: collections.deque = collections.deque()
 
     def _fill(self):
@@ -47,13 +48,16 @@ class DeviceIngestRing:
                 return
             # async dispatch: upload starts now, overlaps device compute
             # (ascontiguousarray is a no-op for contiguous slot views)
-            dev = jax.device_put(np.ascontiguousarray(frame))
+            frame = np.ascontiguousarray(frame)
+            if self._sync and self._host_backend:
+                # the CPU backend may alias a host view instead of copying
+                # it, and the slot is reused for a later frame
+                frame = frame.copy()
+            dev = jax.device_put(frame)
             if self._sync:
-                # one-element fetch, not block_until_ready: the latter can
-                # return early on relay-attached devices, and a stale slot
-                # read is silent corruption (utils.stats.device_sync)
-                from tpufg.utils.stats import device_sync
-                device_sync(dev)
+                # the upload must land before the host slot is reused: a
+                # stale slot read is silent corruption
+                jax.block_until_ready(dev)
             self._q.append(dev)
 
     def __iter__(self):

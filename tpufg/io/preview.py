@@ -1,8 +1,8 @@
-"""Live preview over HTTP — the TPU-host analog of the reference's window.
+"""Live preview over HTTP — the headless-host analog of the reference's window.
 
 The reference is an interactive app: every processed frame is blitted into
 an SDL window next to a stats overlay (src/scaler.cpp:404-418, 538-609).
-A TPU host is headless, so the live loop becomes a tiny in-process HTTP
+An accelerator host is headless, so the live loop becomes a tiny in-process HTTP
 server: ``--preview PORT`` publishes the latest output frame and the
 stream stats, and any browser on the network is the display.
 

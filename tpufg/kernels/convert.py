@@ -5,19 +5,14 @@ The reference ingests BGRA8 X11 pixels straight into rgba8 VkImages
 (scaler.cpp:480-614); all three shaders are channel-order-invariant, so the
 reference's R/B swap cancels out (SURVEY.md §2.3.7).  This framework picks
 one canonical order at ingest: frames enter as uint8 [H, W, C] RGBA and are
-converted to the internal planar [C, H, W] f32/bf16 layout (lanes = W,
-sublanes = H — the TPU-friendly layout for every kernel in this package),
-normalized to [0, 1] (UNORM read: x/255).
+converted to the internal planar [C, H, W] f32/bf16 layout (W
+contiguous), normalized to [0, 1] (UNORM read: x/255).
 
 Egress quantizes with the Vulkan UNORM8 store convention (clamp, *255,
 round-to-nearest-even) — shared with the oracle's quantize_unorm8.
 
-These are deliberately plain XLA ops: transpose + convert fuse well with
-their producers.  (Measured dead ends, do not retry: a standalone Pallas
-quantize+int32-pack kernel is ~0.2 ms faster in isolation at 4K but SLOWER
-in the step — its custom-call boundary forces materialization of the lazy
-crop slice feeding it, +0.5 ms/output; the winning fusion packs inside the
-*producing* kernel instead, see kernels/lanczos.py lanczos_scale_packed.)
+These are plain XLA ops: unpack/transpose/convert fuse with their
+producers and consumers.
 """
 
 from __future__ import annotations
@@ -26,77 +21,26 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-
-from tpufg.kernels.common import use_interpret
 
 F32 = jnp.float32
 
 
-def _unpack_kernel(x_ref, o_ref):
-    q = x_ref[...]                               # [bh, bw] i32 (4 u8 lanes)
-    inv = F32(1.0 / 255.0)
-    for ci in range(4):
-        o_ref[ci] = ((q >> (8 * ci)) & 0xFF).astype(F32) * inv
-
-
-def _block_dims(h: int, w: int):
-    for bh in (48, 40, 32, 24, 16, 8):
-        if h % bh == 0:
-            for bw in (768, 640, 512, 384, 256, 128):
-                if w % bw == 0:
-                    return bh, bw
-    return None
-
-
-@functools.partial(jax.jit, static_argnames=("dtype", "interpret"))
-def frames_to_planar(frames: jax.Array, dtype=jnp.float32,
-                     interpret: bool | None = None) -> jax.Array:
+@functools.partial(jax.jit, static_argnames=("dtype",))
+def frames_to_planar(frames: jax.Array, dtype=jnp.float32) -> jax.Array:
     """uint8 [..., H, W, C] (or packed int32 [H, W] wire) -> planar
     [..., C, H, W] in [0,1].
 
-    4-channel full frames take a Pallas unpack kernel: the uint8[H,W,4]
-    input bitcasts (free, little-endian lanes) to int32[H,W]; the kernel
-    shifts the four bytes out in VMEM and writes the planar f32 stack —
-    no strided transpose traffic.  Safe here because the operand is a jit
-    argument (already materialized); the mirrored OUTPUT-side pack kernel
-    regressed for the reason in the module docstring.
-
     An int32 [H, W] input is the packed RGBA wire format (channel c in
     byte c, little-endian — the exact bytes of the uint8 frame): the host
-    views frames as int32 lanes for free, which skips the u8->i32 bitcast
-    relayout XLA otherwise emits on-device (~0.1 ms/frame at 1080p).
+    views frames as int32 lanes for free.
     """
-    if interpret is None:
-        interpret = use_interpret()
-    packed = None
     if frames.ndim == 2 and frames.dtype == jnp.int32:
-        packed = frames
-        h, w = frames.shape
-    elif (frames.ndim == 3 and frames.shape[-1] == 4
-            and frames.dtype == jnp.uint8):
-        h, w = frames.shape[:2]
-    else:
-        h = w = 0
-    dims = _block_dims(h, w) if h else None
-    if dims is not None and not interpret:
-        bh, bw = dims
-        if packed is None:
-            packed = jax.lax.bitcast_convert_type(frames, jnp.int32)
-        out = pl.pallas_call(
-            _unpack_kernel, grid=(h // bh, w // bw),
-            in_specs=[pl.BlockSpec((bh, bw), lambda i, j: (i, j))],
-            out_specs=pl.BlockSpec((4, bh, bw), lambda i, j: (0, i, j)),
-            out_shape=jax.ShapeDtypeStruct((4, h, w), jnp.float32),
-        )(packed)
-        return out.astype(dtype)
-    if packed is not None:
-        # fallback (interpret/odd sizes): reinterpret the packed wire as
-        # uint8 and share the generic path below STRUCTURALLY — a shift
-        # -based unpack builds a different float graph and XLA's algebraic
-        # rewrites then round .5 quantization boundaries differently
-        # between the two wires; a pure bit reinterpretation cannot.
-        frames = jax.lax.bitcast_convert_type(packed, jnp.uint8)
+        # reinterpret the packed wire as uint8 and share the uint8 path
+        # STRUCTURALLY — a shift-based unpack builds a different float
+        # graph, and XLA's algebraic rewrites could then round .5
+        # quantization boundaries differently between the two wires; a
+        # pure bit reinterpretation cannot.
+        frames = jax.lax.bitcast_convert_type(frames, jnp.uint8)
     x = frames.astype(F32) / F32(255.0)
     x = jnp.moveaxis(x, -1, -3)
     return x.astype(dtype)

@@ -1,11 +1,13 @@
-"""Small-radius block-matching motion search in pure XLA.
+"""Block-matching motion search in pure XLA.
 
-The Pallas kernel (tpufg.kernels.motion) is the full-radius parity engine;
-at the pyramid's small radii (r <= 4, so 25-81 candidates) its per-tile DMA
-and candidate-loop overheads dominate.  This formulation unrolls the
-candidate loop at trace time — each candidate is a static shifted slice of
-the padded previous frame, a fused elementwise distance field, and one
-additive ``reduce_window`` box-sum — and lets XLA fuse the argmin chain.
+The Triton kernel (tpufg.kernels.motion) is the full-radius search at the
+MV-lattice sites (engine config 3).  :func:`motion_search_lattice` is the
+pyramid's small-radius search at the same sites (candidates unrolled at
+trace time, so it suits r <= 4).  :func:`motion_search_xla` is the
+per-pixel search for the block sizes and radii the lattice paths do not
+take: a loop over candidates, each a shifted window of the edge-padded
+previous frame, a fused elementwise distance field and one additive
+``reduce_window`` box-sum, so its program size does not grow with r.
 
 Same conventions as the kernel/oracle: curr out-of-image block pixels
 contribute nothing (zero padding of the distance field), prev clamp-to-edge
@@ -31,8 +33,9 @@ def motion_search_xla(
     search_radius: int = 4,
     metric: str = "euclidean",
 ) -> jax.Array:
-    """Exhaustive search, XLA path.  Same contract as motion_search_tiled:
-    planar [C, H, W] -> f32 [2, H, W] pixel-unit backward-flow MVs.
+    """Exhaustive per-pixel search, XLA path: planar [C, H, W] -> f32
+    [2, H, W] pixel-unit backward-flow MVs (oracle conventions; the box
+    sum is separable, rows then x).
 
     ``metric``: "euclidean" is the shader's per-pixel RGBA distance
     (motion.comp:45 — sqrt per pixel); "ssd" drops the sqrt (sum of
@@ -58,22 +61,26 @@ def motion_search_xla(
         return jax.lax.reduce_window(x, F32(0.0), jax.lax.add,
                                      (1, b), (1, 1), ((0, 0), pad))
 
-    best_cost = jnp.full((h, w), 1e10, F32)
-    best_dx = jnp.zeros((h, w), F32)
-    best_dy = jnp.zeros((h, w), F32)
-    for dy in range(-r, r + 1):          # dy outer — motion.comp:27
-        for dx in range(-r, r + 1):      # dx inner — motion.comp:28
-            shifted = prev_p[:, r + dy: r + dy + h, r + dx: r + dx + w]
-            diff = curr - shifted
-            acc = diff[0] * diff[0]
-            for ci in range(1, n_ch):
-                acc = acc + diff[ci] * diff[ci]
-            dist = jnp.sqrt(acc) if metric == "euclidean" else acc
-            cost = box(dist)
-            upd = cost < best_cost       # strict <: first found wins
-            best_cost = jnp.where(upd, cost, best_cost)
-            best_dx = jnp.where(upd, F32(dx), best_dx)
-            best_dy = jnp.where(upd, F32(dy), best_dy)
+    n_dx = 2 * r + 1
+
+    def body(i, carry):
+        best_cost, best_dx, best_dy = carry
+        dyi, dxi = i // n_dx, i % n_dx   # dy outer, dx inner — motion.comp:27
+        shifted = jax.lax.dynamic_slice(prev_p, (0, dyi, dxi), (n_ch, h, w))
+        diff = curr - shifted
+        acc = diff[0] * diff[0]
+        for ci in range(1, n_ch):
+            acc = acc + diff[ci] * diff[ci]
+        dist = jnp.sqrt(acc) if metric == "euclidean" else acc
+        cost = box(dist)
+        upd = cost < best_cost           # strict <: first found wins
+        return (jnp.where(upd, cost, best_cost),
+                jnp.where(upd, (dxi - r).astype(F32), best_dx),
+                jnp.where(upd, (dyi - r).astype(F32), best_dy))
+
+    init = (jnp.full((h, w), 1e10, F32), jnp.zeros((h, w), F32),
+            jnp.zeros((h, w), F32))
+    _, best_dx, best_dy = jax.lax.fori_loop(0, n_dx * n_dx, body, init)
     return jnp.stack([best_dx, best_dy])
 
 
@@ -102,10 +109,10 @@ def motion_search_lattice(
     of static strided slices — no shifted image copies at all (the
     reference's ~70k reads/px become ~(b+2r)^2 reads per cell).
 
-    Same conventions as motion_search_tiled(exact_box=False): Euclidean
-    per-pixel distance, separable rows-then-x block sum in the same f32
-    accumulation order, strict-< argmin over the dy-outer/dx-inner scan —
-    output is bitwise the subsampled tiled-kernel field.  Block windows at
+    Same conventions as motion_search_xla: Euclidean per-pixel distance,
+    separable rows-then-x block sum in the same f32 accumulation order,
+    strict-< argmin over the dy-outer/dx-inner scan — output is bitwise
+    the subsampled motion_search_xla field.  Block windows at
     these centers never leave the image (blockStart = g/2 - b/2 >= 0), so
     the validity mask and clamp-to-edge halo never engage.
 
@@ -122,7 +129,7 @@ def motion_search_lattice(
     if off - r < 0 or off + b + r > g:
         raise ValueError(
             f"radius {r} leaves the grid cell (need r + b/2 <= g/2); "
-            "use motion_search_tiled")
+            "use motion_search_xla")
     return _lattice_impl(prev, curr, g, b, r, bias, return_cost)
 
 
@@ -137,14 +144,8 @@ def _lattice_impl(prev, curr, g, b, r, bias, return_cost):
     curr_blk = curr.astype(F32).reshape(n_ch, hb, g, wb, g)[
         :, :, off:off + b, :, off:off + b]
 
-    # NOTE: batching all (2r+1)^2 candidates along a leading stacked axis
-    # measured 3x SLOWER (14.9 vs 4.9 ms/step at 1080p): the stacked
-    # [K, C, Hb, b, Wb, b] tensors keep the b=8 minor dims (6% lane
-    # utilization) and the 42 MB materialization + copies dwarf the saved
-    # per-op overhead.  Replacing the ordered box-sum loops with .sum()
-    # reductions measured mixed (-0.5 ms at the 81-candidate coarse level,
-    # +0.3 ms at the refine level) and forfeits the bitwise tie to the
-    # tiled kernel.  The trace-unrolled per-candidate loop below stays.
+    # ordered box-sum loops (not .sum() reductions) keep the bitwise tie
+    # to motion_search_xla's accumulation order
     best_cost = jnp.full((hb, wb), 1e10, F32)
     best_dx = jnp.zeros((hb, wb), F32)
     best_dy = jnp.zeros((hb, wb), F32)
@@ -159,7 +160,7 @@ def _lattice_impl(prev, curr, g, b, r, bias, return_cost):
                 acc = acc + d * d
             dist = jnp.sqrt(acc)                      # [Hb, b, Wb, b]
             # separable box-sum, rows-then-x, sequential adds: bitwise
-            # the tiled kernel's exact_box=False accumulation order
+            # motion_search_xla's accumulation order
             rowsum = dist[:, 0]
             for ky in range(1, b):
                 rowsum = rowsum + dist[:, ky]         # [Hb, Wb, b]
@@ -174,7 +175,7 @@ def _lattice_impl(prev, curr, g, b, r, bias, return_cost):
                 # A static per-candidate penalty proportional to |d| snaps
                 # those ties toward the smallest displacement (toward the
                 # PREDICTOR in seeded/residual searches).  bias=0 (the
-                # default) keeps the bitwise tie to the tiled kernel.
+                # default) keeps the bitwise tie to motion_search_xla.
                 cost = cost + F32(bias * (abs(dx) + abs(dy)))
             upd = cost < best_cost       # strict <: first found wins
             best_cost = jnp.where(upd, cost, best_cost)

@@ -1,75 +1,30 @@
-"""Aligned 2x box downsample as a Pallas matmul kernel.
+"""Aligned 2x box downsample (the pyramid's level construction).
 
-The pyramid's level construction (2x2 mean) is a strided reduction XLA
-executes poorly on TPU (~5 ms per 1080p level as a reshape-mean); as two
-banded matmuls with static averaging matrices it runs on the MXU with
-perfectly aligned BlockSpec tiles (input block = exactly 2x the output
-block, so no halo DMA is needed at all).
+Plain XLA: a reshape exposing the 2x2 cells, rows averaged first, then
+columns, each as ``0.5*(a + b)``.  Halving is exact in binary floating
+point, so ``0.5*(a+b)`` equals ``0.5*a + 0.5*b`` bit for bit, and the
+result is the two-pass banded average ``Ry @ x @ Rx`` (0.5 taps) exactly.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-
-from tpufg.kernels.common import cdiv, pick_tile, round_up, use_interpret
 
 F32 = jnp.float32
 
 
-def _avg_band(n_out: int) -> np.ndarray:
-    """[2*n_out, n_out] matrix with 0.5 at (2j, j) and (2j+1, j)."""
-    m = np.zeros((2 * n_out, n_out), np.float32)
-    j = np.arange(n_out)
-    m[2 * j, j] = 0.5
-    m[2 * j + 1, j] = 0.5
-    return m
+@jax.jit
+def box_downsample2(img: jax.Array) -> jax.Array:
+    """[C, H, W] -> [C, H/2, W/2] 2x2 box mean (H, W even).
 
-
-def _box2_kernel(x_ref, ry_ref, rx_ref, o_ref, *, compute_dtype):
-    prec = (jax.lax.Precision.HIGHEST if compute_dtype == jnp.float32
-            else jax.lax.Precision.DEFAULT)
-    tmp = jnp.dot(ry_ref[:], x_ref[0], preferred_element_type=F32,
-                  precision=prec)          # [TH, 2TW]
-    out = jnp.dot(tmp.astype(compute_dtype), rx_ref[:],
-                  preferred_element_type=F32, precision=prec)
-    o_ref[0] = out.astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def box_downsample2(img: jax.Array, tile: int = 128,
-                    interpret: bool | None = None) -> jax.Array:
-    """[C, H, W] -> [C, H/2, W/2] 2x2 box mean (H, W even)."""
-    if interpret is None:
-        interpret = use_interpret()
+    Computed in f32; a bf16 input rounds the row average to bf16 before
+    the column pass and returns bf16."""
     c, h, w = img.shape
     if h % 2 or w % 2:
         raise ValueError(f"box_downsample2 needs even dims, got {h}x{w}")
-    oh, ow = h // 2, w // 2
-    th = pick_tile(oh, 8, tile + tile // 2)
-    tw = pick_tile(ow, 128, tile)
-    n_ty, n_tx = cdiv(oh, th), cdiv(ow, tw)
-    hp, wp = n_ty * th * 2, n_tx * tw * 2
-    img_p = jnp.pad(img, ((0, 0), (0, hp - h), (0, wp - w)))
     dt = img.dtype
-
-    ry = jnp.asarray(_avg_band(th).T, dtype=dt)   # [TH, 2TH]
-    rx = jnp.asarray(_avg_band(tw), dtype=dt)     # [2TW, TW]
-
-    out = pl.pallas_call(
-        functools.partial(_box2_kernel, compute_dtype=dt),
-        grid=(c, n_ty, n_tx),
-        in_specs=[
-            pl.BlockSpec((1, 2 * th, 2 * tw), lambda ci, ty, tx: (ci, ty, tx)),
-            pl.BlockSpec((th, 2 * th), lambda ci, ty, tx: (0, 0)),
-            pl.BlockSpec((2 * tw, tw), lambda ci, ty, tx: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, th, tw), lambda ci, ty, tx: (ci, ty, tx)),
-        out_shape=jax.ShapeDtypeStruct((c, n_ty * th, n_tx * tw), dt),
-        interpret=interpret,
-    )(img_p, ry, rx)
-    return out[:, :oh, :ow]
+    x = img.astype(F32).reshape(c, h // 2, 2, w)
+    rows = (F32(0.5) * (x[:, :, 0] + x[:, :, 1])).astype(dt).astype(F32)
+    rows = rows.reshape(c, h // 2, w // 2, 2)
+    return (F32(0.5) * (rows[..., 0] + rows[..., 1])).astype(dt)

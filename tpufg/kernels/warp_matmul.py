@@ -1,24 +1,19 @@
 """Block-granular warp+blend as fused one-hot shifts (pure XLA).
 
-Production warp path.  The Pallas block-warp (tpufg.kernels.warp) is
-bit-parity-tested against the oracle but bounded by per-op fixed costs on
-TPU (measured ~35-75 ns/vector-op: 64 blocks x ~50 small ops/tile dominate
-its runtime).  This formulation turns the same math into a few dozen LARGE
-fused elementwise ops:
+Production warp path.  The per-block warp of interpolate.comp becomes a
+few dozen LARGE fused operations instead of many small per-block ones:
 
   - frames are viewed as overlapping 16-row bands (each band's blocks can
     reach +-halo rows, so bands duplicate rows ~3.5x — inherent to
     separable per-block warping);
-  - the horizontal then vertical integer shifts are one-hot accumulations
-    over the 2r+1 possible offsets: for each offset, a static slice pair is
-    bilinearly lerped and masked by (block_shift == offset) — XLA fuses the
-    whole chain into one VPU traversal, entirely in f32 (no MXU operand
-    quantization; two earlier designs — per-column banded-matmul segments
-    and per-block batched matmuls — measured 2.8 ms and 3.4 ms against
-    <1 ms for the fused form, and both rounded operands to bf16);
+  - the horizontal shift is a pair of batched einsums against per-column
+    two-banded shift matrices; the vertical shift is a one-hot
+    accumulation over the 2r+1 possible offsets: for each offset, a static
+    slice pair is bilinearly lerped and masked by (block_shift == offset),
+    which XLA fuses into one elementwise traversal;
   - OOB transparent-black masking and the t-blend are fused elementwise.
 
-Matches the Pallas kernel / oracle to f32 rounding.  Semantics identical:
+Matches the oracle to f32 rounding.  Semantics identical:
 MV in pixel units, forward flow, clamp-to-edge taps, uv-outside-[0,1]
 blanked (interpolate.comp:15-22, 34-38).
 """
@@ -59,19 +54,16 @@ def _build_bands(ext, *, g, halo, n_by, dtype, max_off):
 
     Band ``by`` covers ext rows [by*g, by*g + g + 2*halo) = global
     [by*g - halo, by*g + g + halo), built from g-row groups with shifted
-    slices + concat (a plain XLA gather materializes ~140 MB/frame and
-    measured ~5x slower), then trimmed to the 8-aligned window the
-    vertical pass actually reads (17% less band/einsum traffic at the
-    default halo=16, eff_r=8).
+    slices + concat (a plain gather would materialize every band row),
+    then trimmed to the 8-aligned window the vertical pass actually reads
+    (17% less band/einsum traffic at the default halo=16, eff_r=8).
 
     Factored out of :func:`_warp_one` so single-mode callers can compute
     it ONCE per frame and reuse it across several flow fields — a k-fps-
-    multiplying learned tail warps the same pair at k-1 time points.
-    Measured on chip (k=4, 4K->4K): a WASH vs inline (55.91 vs
-    55.92 ms/step) — XLA already CSE'd the identical prep subgraphs
-    across the time points; the explicit split is kept because it makes
-    the sharing deterministic instead of an optimizer courtesy, at zero
-    cost.  Returns (bands [C, n_by, R', We], band_rows, halo_v).
+    multiplying learned tail warps the same pair at k-1 time points.  XLA
+    may CSE the identical prep subgraphs on its own; the explicit split
+    makes the sharing deterministic instead of an optimizer courtesy.
+    Returns (bands [C, n_by, R', We], band_rows, halo_v).
     """
     c = ext.shape[0]
     we = ext.shape[-1]
@@ -82,10 +74,8 @@ def _build_bands(ext, *, g, halo, n_by, dtype, max_off):
     lo = max(0, (halo - max_off) // 8 * 8)
     hi = min(band_rows, -(-(halo + max_off + g + 1) // 8) * 8)
     halo_v = halo - lo             # vertical-slice origin within bands
-    # one joint band tensor, segment slices taken afterwards.  (Banding
-    # the two 128-col segments separately — to skip the slice copies —
-    # measured 5.10 vs 4.52 ms/step: the duplicated concat reads cost
-    # more than the two slice materializations they save.)
+    # one joint band tensor, segment slices taken afterwards (banding the
+    # two 128-col segments separately would duplicate the concat reads)
     bands = jnp.concatenate(
         [groups[:, i:i + n_by] for i in range(n_seg)], axis=2
     )[:, :, lo:hi]                                        # [C, n_by, R', We]
@@ -95,12 +85,8 @@ def _build_bands(ext, *, g, halo, n_by, dtype, max_off):
 def _warp_one(ext, ix0, fx, iy0, fy, *, g, halo, n_by, n_bx, h, w,
               dtype, prec, max_off, integer_offsets=False,
               obmc=False, halo_r=None, bands=None):
-    """Warp one frame by per-block offsets.
-
-    (A batched variant warping prev+curr in one pass with a leading frame
-    axis measured 6.7 vs 4.9 ms/step at 1080p->4K — the stack and the extra
-    axis force layout copies that dwarf the saved per-op overhead — so the
-    two-call form is kept.)
+    """Warp one frame by per-block offsets (prev and curr are two calls:
+    a leading frame axis would force layout copies of the stacked pair).
 
     ext: [C, H + 2*halo_rows, W'] edge-padded planar frame (compute dtype);
     halo_rows is ``halo`` (block mode) or ``halo_r`` (obmc mode).
@@ -138,7 +124,7 @@ def _warp_one(ext, ix0, fx, iy0, fy, *, g, halo, n_by, n_bx, h, w,
         # bands of 2g output rows centered on MV sites (c_j = j*g + g/2),
         # built from 8-row groups at stride g (origin j*g + lo)
         hr = halo_r
-        h_g = 8                        # sublane-aligned group height
+        h_g = 8                        # 8-row group height
         out_rows = 2 * g
         lo = max(0, (hr - g // 2 - max_off) // 8 * 8)
         hi = -(-(hr + 3 * g // 2 + max_off + 1) // 8) * 8
@@ -170,8 +156,7 @@ def _warp_one(ext, ix0, fx, iy0, fy, *, g, halo, n_by, n_bx, h, w,
     # --- horizontal: per-column 2-banded shift matrices.  Output col tile t
     # (128 wide) reads ext cols [t*128+1, t*128+128+2*halo) — a 256 window,
     # split into its two aligned 128-col segments -> two big batched
-    # einsums.  (Fused one-hot variants along the LANE axis measured
-    # 13-34 ms — lane-shifted slices defeat XLA fusion — vs 2.8 ms here.)
+    # einsums (column-shifted slices along the contiguous axis fuse poorly)
     n_tx = w // 128
     span = 256
     ii = jax.lax.broadcasted_iota(jnp.int32, (span, 128), 0)
@@ -180,9 +165,9 @@ def _warp_one(ext, ix0, fx, iy0, fy, *, g, halo, n_by, n_bx, h, w,
     sh = jnp.transpose(sx.reshape(n_by, n_tx, 128), (1, 0, 2))[:, :, None, :]
     fr = jnp.transpose(fxc.reshape(n_by, n_tx, 128),
                        (1, 0, 2))[:, :, None, :].astype(dtype)
-    # built directly in the compute dtype: the f32 [n_tx,n_by,256,128]
-    # intermediate + convert measured ~0.4 ms/step at 1080p (134 MB of HBM
-    # churn for a matrix the MXU reads as bf16 anyway)
+    # built directly in the compute dtype: an f32 [n_tx,n_by,256,128]
+    # intermediate + convert would move ~134 MB at 1080p for a matrix the
+    # einsum reads in the compute dtype anyway
     if integer_offsets:
         s_full = jnp.where(d[None, None] == sh, one, zero)
     else:
@@ -191,8 +176,8 @@ def _warp_one(ext, ix0, fx, iy0, fy, *, g, halo, n_by, n_bx, h, w,
     segs = bands.reshape(c, n_by, band_rows, n_tx + 1, 128)
     segs0 = segs[..., :-1, :]
     segs1 = segs[..., 1:, :]
-    # einsums emit the compute dtype: each element is exact-f32-accumulated
-    # in the MXU then rounded once; only outputs whose 2-tap window spans
+    # einsums emit the compute dtype: each element is f32-accumulated
+    # then rounded once; only outputs whose 2-tap window spans
     # the segment boundary (<= 2 cols per 128) pick up a second rounding
     # from the cross-segment add (<= 1 ulp; f32 path unchanged — dtype=F32
     # makes this identical to an f32 accumulate)
@@ -205,10 +190,9 @@ def _warp_one(ext, ix0, fx, iy0, fy, *, g, halo, n_by, n_bx, h, w,
     hx = hx.reshape(c, n_by, band_rows, w)                # [C, n_by, R, W]
 
     # --- vertical: one-hot accumulation over the possible integer offsets,
-    # slicing sublanes (fuses; a batched-matmul vertical measured 3.4 ms —
-    # 8k tiny [16,64]@[64,64] instances starve the MXU).  Runs in the
-    # compute dtype: with centered operands bf16 costs <= 1/2^10 here, and
-    # the f32 variant measured 8 ms slower (fusion degrades).
+    # slicing rows (fuses into one traversal; a batched-matmul form would
+    # be 8k tiny [16,64]@[64,64] products).  Runs in the compute dtype:
+    # with centered operands bf16 costs <= 1/2^10 here.
     # accumulate in the compute dtype: exactly ONE delta fires per element
     # (iy0 is a single integer in [-max_off, max_off]), so the "sum" is a
     # select chain — bf16 accumulation is exact (terms are already
@@ -269,10 +253,11 @@ def warp_blend_matmul(
     mc_fallback: bool = False,
     _valid_w: int | None = None,
 ) -> jax.Array:
-    """Motion-compensated blend (production XLA/MXU path).
+    """Motion-compensated blend (production XLA path).
 
-    Same contract as tpufg.kernels.warp.warp_blend_block: planar [C, H, W]
-    f32 frames, [2, H//block, W//block] pixel-unit forward-flow MVs.
+    Planar [C, H, W] f32 frames, [2, H//block, W//block] pixel-unit
+    forward-flow MVs; the oracle's semantics with the MV field read
+    block-constant.
     ``dtype`` selects the matmul precision (bf16 for production).
     W must be a multiple of 128 and H of ``block``.
 
@@ -281,7 +266,7 @@ def warp_blend_matmul(
     content exists in only one frame) and averaging produces a
     double-exposure ghost; instead the blend shifts toward the temporally
     closer frame.  Fused elementwise on the already-materialized warped
-    pair — measured cost is noise.  Off by default (the shader spec blends
+    pair.  Off by default (the shader spec blends
     unconditionally, interpolate.comp:38).
 
     ``mc_fallback``: adaptive per-cell fallback to a plain crossfade where
@@ -338,7 +323,7 @@ def warp_blend_matmul(
     if bilinear and integer_offsets:
         raise ValueError("bilinear MV offsets are fractional by nature")
     if bilinear and g % 8:
-        # obmc bands are built from 8-row groups (sublane alignment)
+        # obmc bands are built from 8-row groups
         raise ValueError(f"bilinear warp needs block % 8 == 0, got {g}")
     # obmc bands span 2g rows around MV sites: wider row halo (the column
     # halo — the 256-window constraint — is unchanged)
@@ -484,11 +469,9 @@ def warp_single_prepare(
     **kw)`` — same ops in the same order, just split so a caller warping
     ONE frame by SEVERAL flow fields (the k-fps-multiplying learned tail:
     k-1 t-scaled flows per side) shares the pad+band construction by
-    CONSTRUCTION.  Measured on chip at k=4 4K->4K this is a wash vs the
-    inline form (XLA already CSE'd the identical subgraphs; the per-line
-    profile that suggested a 16 ms duplicated prefix was fusion
-    mis-attribution — the remaining 56 ms is genuinely per-t warp work:
-    distinct t-scaled flows need distinct one-hot shifts).
+    CONSTRUCTION instead of relying on XLA to CSE identical subgraphs
+    (the per-t remainder is genuine work: distinct t-scaled flows need
+    distinct one-hot shifts).
 
     Requires W % 128 == 0 (edge-pad the columns first — exactly what
     warp_blend_matmul does internally for other widths) and H % block

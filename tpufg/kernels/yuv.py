@@ -2,9 +2,9 @@
 
 The reference's present path — readback + CPU blit into the SDL surface
 (reference src/scaler.cpp:480-609) — is host work in its per-frame loop.
-The TPU-native egress does the color conversion ON DEVICE instead: the
+The device-side egress does the color conversion ON DEVICE instead: the
 step's packed-RGBA wire output is converted to BT.601 limited-range planes
-by fused integer VPU ops, and what crosses the host boundary is the final
+by fused integer ops, and what crosses the host boundary is the final
 y4m FRAME payload bytes.  Two wins on top of freeing the (single-CPU) host
 of per-pixel work:
 

@@ -2,15 +2,15 @@
 
 The reference's exhaustive per-pixel block matching (shaders/motion.comp,
 (2r+1)^2 = 1089 candidates at full resolution) is a WIP placeholder whose
-cost is quadratic in the search radius; it exists here as the parity kernel
-(tpufg.kernels.motion).  The production path is the classic coarse-to-fine
+cost is quadratic in the search radius; it exists here as the parity path
+(tpufg.kernels.motion, engine config 3).  The production path is the classic coarse-to-fine
 pyramid (BASELINE.json config 5):
 
 1. build a box-filtered image pyramid (2x per level);
 2. exhaustive search at the coarsest level with a small radius (covers the
    same +-16 px full-res displacement at 1/2^L scale);
 3. at each finer level: upsample the MV field 2x (values doubled), warp the
-   previous frame by the estimate (block-granular Pallas warp), and run a
+   previous frame by the estimate (block-granular warp), and run a
    small-radius residual search between the warped prev and curr; the
    residual is added to the estimate.
 
@@ -29,18 +29,17 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from tpufg.kernels.motion import motion_search_tiled
-from tpufg.kernels.motion_xla import motion_search_lattice
+from tpufg.kernels.motion_xla import motion_search_lattice, motion_search_xla
+from tpufg.kernels.resize import box_downsample2
 from tpufg.kernels.warp_matmul import warp_blend_matmul
 
 F32 = jnp.float32
 
 # max |temporal seed| in full-resolution pixels: bounds the seeded coarse
 # warp's static halo (48/4 = 12 coarse px at the default 3 levels) and the
-# production warp's range when --temporal-mv is on.  Measured cost of the
-# wider warp at 1080p->4K: clamp 64 -> 17.1 ms/pair, 48 -> 13.6 (vs 5.6
-# without temporal); 48 balances tracking range (~±70 px/frame total
-# incl. the pyramid's own reach) against the one-hot/halo growth.
+# production warp's range when --temporal-mv is on; 48 balances tracking
+# range (~±70 px/frame total incl. the pyramid's own reach) against the
+# one-hot/halo growth of the wider warp.
 TEMPORAL_CLAMP = 48
 
 
@@ -48,12 +47,6 @@ def _lattice_ok(radius: int, block: int, grid: int) -> bool:
     """Lattice fast path applies when candidate windows stay in-cell."""
     off = (grid - block) // 2
     return off - radius >= 0 and off + block + radius <= grid
-
-
-def _downsample2(x: jax.Array) -> jax.Array:
-    """2x2 box filter downsample of planar [C, H, W] (H, W even)."""
-    from tpufg.kernels.resize import box_downsample2
-    return box_downsample2(x)
 
 
 def _block_subsample(mv: jax.Array, g: int) -> jax.Array:
@@ -180,7 +173,7 @@ def subpel_refine(prev: jax.Array, curr: jax.Array, mv: jax.Array,
 @functools.partial(
     jax.jit,
     static_argnames=("levels", "base_radius", "refine_radius", "block_size",
-                     "grid", "interpret", "skip_finest_refine", "bias"),
+                     "grid", "skip_finest_refine", "bias"),
 )
 def pyramid_motion_search(
     prev: jax.Array,
@@ -190,7 +183,6 @@ def pyramid_motion_search(
     refine_radius: int = 2,
     block_size: int = 8,
     grid: int = 16,
-    interpret: bool | None = None,
     skip_finest_refine: int = 0,
     seed: jax.Array | None = None,
     bias: float = 0.0,
@@ -224,13 +216,13 @@ def pyramid_motion_search(
     pyr = [(prev.astype(F32), curr.astype(F32))]
     for _ in range(levels - 1):
         p, q = pyr[-1]
-        pyr.append((_downsample2(p), _downsample2(q)))
+        pyr.append((box_downsample2(p), box_downsample2(q)))
 
     # coarsest level: exhaustive small-radius search subsampled to the
     # block grid.  The lattice path evaluates candidates only at the grid
     # centers the pyramid consumes (256x less argmin work than the
-    # per-pixel kernel, bitwise the same field); the per-pixel tiled
-    # kernel is the fallback for radii whose windows leave the grid cell.
+    # per-pixel search); the per-pixel XLA search (motion_search_xla) is
+    # the fallback for radii whose windows leave the grid cell.
     p0, q0 = pyr[-1]
     seed_c = None
     if seed is not None:
@@ -250,12 +242,8 @@ def pyramid_motion_search(
             p0, q0, grid=grid, block_size=block_size,
             search_radius=base_radius, bias=bias)
     else:
-        # 64-row tiles win at coarse-level sizes (measured 1.8 vs 4.2 ms
-        # at 272x480: less edge-tile padding waste, more VMEM headroom)
-        mv_px = motion_search_tiled(
-            p0, q0, block_size=block_size, search_radius=base_radius,
-            exact_box=False, interpret=interpret, tile_h=64, tile_w=256,
-        )
+        mv_px = motion_search_xla(p0, q0, block_size=block_size,
+                                  search_radius=base_radius)
         mv = _block_subsample(mv_px, grid)
     if seed_c is not None:
         mv = mv + seed_c  # residual + predictor, both in coarse-level px
@@ -304,11 +292,8 @@ def pyramid_motion_search(
                 warped, q_l, grid=grid, block_size=block_size,
                 search_radius=refine_radius, bias=bias)
         else:
-            res_px = motion_search_tiled(
-                warped, q_l, block_size=block_size,
-                search_radius=refine_radius, exact_box=False,
-                interpret=interpret,
-            )
+            res_px = motion_search_xla(warped, q_l, block_size=block_size,
+                                       search_radius=refine_radius)
             res = _block_subsample(res_px, grid)
         mv = mv + res
     return mv

@@ -288,6 +288,8 @@ def main(argv=None) -> int:
     import jax
     import jax.numpy as jnp
 
+    from tpufg.utils.compile_cache import setup_compile_cache
+    setup_compile_cache()
     from tpufg.io.sources import SourceError, open_source
     from tpufg.models import rife
     from tpufg.utils.checkpoint import load_pytree, save_pytree

@@ -1,9 +1,9 @@
 // fgio — native ingest/egress runtime for tpufg.
 //
-// TPU-native counterpart of the reference's native IO stack: where
+// Native counterpart of the reference's native IO stack: where
 // linux-fg moves pixels with XShm segments + Vulkan staging buffers
 // (reference src/window_capture.cpp:276-303, 472-568; frame_manager.cpp
-// 199-214), a TPU host's ingest hot path is disk/stream -> pixel
+// 199-214), an accelerator host's ingest hot path is disk/stream -> pixel
 // conversion -> page-aligned host buffers feeding jax.device_put.  This
 // library provides that path in C++:
 //

@@ -1,16 +1,17 @@
-"""Multi-chip spatial sharding with ICI halo exchange.
+"""Multi-device spatial sharding with row-halo exchange.
 
 The reference is strictly single-GPU (one device, one queue —
 src/vulkan_context.cpp:76-153; SURVEY.md §2.4): its only parallel
-decomposition is the 16x16 workgroup grid.  The TPU build scales the same
-math across chips the idiomatic way:
+decomposition is the 16x16 workgroup grid.  This build scales the same
+math across the cards of one host:
 
 - **sp (spatial)**: a frame's rows are sharded across the mesh; motion
   search at pixel p reads a (blockSize/2 + searchRadius)-row neighborhood
   (motion.comp:22-47 — 20 rows at reference constants; more through the
   pyramid), so shards exchange fixed-width row halos with their neighbors
-  over ICI via ``jax.lax.ppermute`` inside ``shard_map`` — the same pattern
-  as ring attention's block-wise KV pass (SURVEY.md §5.7).
+  via ``jax.lax.ppermute`` inside ``shard_map`` (collectives that XLA
+  hands to NCCL over NVLink) — the same pattern as ring attention's
+  block-wise KV pass (SURVEY.md §5.7).
 - **dp (data/frame)**: independent frame pairs (offline transcode) shard
   trivially over a leading batch axis.
 
@@ -43,7 +44,9 @@ HALO = 64
 
 def make_spatial_mesh(n_devices: Optional[int] = None,
                       dp: int = 1) -> Mesh:
-    """Build a (dp, sp) mesh over the available devices."""
+    """Build a (dp, sp) mesh over the available devices.  A plain reshape
+    of ``jax.devices()``: every card of the host reaches every other at
+    the same NVLink rate, so the mesh follows the algorithm alone."""
     devs = jax.devices()
     n = n_devices or len(devs)
     if n % dp:
@@ -75,7 +78,6 @@ def halo_exchange_rows(x: jax.Array, axis_name: str, halo: int,
 def make_sharded_interp_step(
     mesh: Mesh,
     cfg: EngineConfig,
-    interpret: bool | None = None,
     model_params=None,
     motion_skip_alpha: bool = False,
     q_feed: bool = False,
@@ -84,7 +86,7 @@ def make_sharded_interp_step(
     (tpufg.engine.pipeline.interp_planar: pyramid with skip_finest_refine=1,
     warp_blend_matmul at the configured compute dtype, the configured
     fps_multiplier / interpolation_factor / kernel constants), run per
-    spatial shard with explicit ICI halo exchange.
+    spatial shard with explicit row-halo exchange.
 
     Input: uint8 [B, H, W, 4] frame pairs (prev, curr), B sharded over dp,
     rows over sp.  Returns cfg.fps_multiplier outputs, each uint8
@@ -209,7 +211,7 @@ def make_sharded_interp_step(
         res = interp_planar(
             p_ext, c_ext, mode=mode, factors=factors, dt=dt,
             block_size=cfg.block_size, search_radius=cfg.search_radius,
-            interpret=interpret, mv_grid=cfg.mv_grid,
+            mv_grid=cfg.mv_grid,
             model_params=model_params,
             subpel=cfg.subpel, mv_bias=cfg.mv_bias,
             mv_filter=cfg.mv_filter, occlusion_blend=cfg.occlusion_blend,
@@ -234,16 +236,16 @@ def make_sharded_interp_step(
             interps = res
         # scale WITH the halo present (interior Lanczos taps see real
         # neighbor rows), then crop the scaled halo.  Non-identity sizes
-        # use the fused scale+quantize+pack kernel (same bytes as
-        # planar_to_frames(lanczos_scale_fast(...)), single HBM touch).
+        # scale fused with quantize+pack (same bytes as
+        # planar_to_frames(lanczos_scale_planar(...))).
         if identity:
             # interpolated frames still round-trip through planar; the
             # scaled-current output is handled below as a passthrough
             pack = lambda x: planar_to_frames(x)[halo:-halo]
         else:
             pack = lambda x: lanczos_scale_packed(
-                x, out_hs + 2 * halo_out, out_w, cfg.lanczos_a,
-                compute_dtype=dt, interpret=interpret)[halo_out:-halo_out]
+                x, out_hs + 2 * halo_out, out_w,
+                cfg.lanczos_a)[halo_out:-halo_out]
         outs = [pack(x) for x in interps]
         if identity:
             # byte-identical to pack(c_ext): exact UNORM8 round-trip +
@@ -326,8 +328,8 @@ def sharded_q_shapes(cfg: EngineConfig, sp: int, model_params):
     return (stack(q4), stack(f4))
 
 
-def make_sharded_q_init(mesh: Mesh, cfg: EngineConfig, model_params,
-                        interpret: bool | None = None) -> Callable:
+def make_sharded_q_init(mesh: Mesh, cfg: EngineConfig,
+                        model_params) -> Callable:
     """Jit'd [B, H, W, 4] uint8 frame -> the sharded stream-cache seed
     for ``make_sharded_interp_step(..., q_feed=True)``.
 
@@ -350,8 +352,8 @@ def make_sharded_q_init(mesh: Mesh, cfg: EngineConfig, model_params,
         q4 = rife._down4_mean(pp)[0]
         if not v3:
             return (q4,)
-        return (q4, rife.encode3(model_params, pp, dtype=jnp.bfloat16,
-                                 fast=True)[0])
+        return (q4, rife.encode3(model_params, pp,
+                                 dtype=jnp.bfloat16)[0])
 
     specs = P("dp", "sp", None, None)
     st_specs = P("dp", None, "sp", None)

@@ -1,7 +1,7 @@
 """Checkpoint/restore for model parameters and optimizer state.
 
 The reference has no persistent state at all (SURVEY.md §5.4 — its only
-cross-frame state is the previous-frame VkImage); the TPU build's learned
+cross-frame state is the previous-frame VkImage); this build's learned
 head (config 5) trains, so it checkpoints.  Format: a flat .npz of the
 pytree leaves plus a structure descriptor — dependency-light and
 array-exact (bitwise restore).

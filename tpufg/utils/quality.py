@@ -11,6 +11,10 @@ SSIM follows Wang et al. 2004 with the standard 11x11 Gaussian window
 
 from __future__ import annotations
 
+import functools
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 
@@ -70,3 +74,34 @@ def psnr(a: np.ndarray, b: np.ndarray, data_range: float = 1.0) -> float:
     if mse == 0:
         return float("inf")
     return float(10.0 * np.log10(data_range**2 / mse))
+
+
+
+@functools.partial(jax.jit, static_argnames=("data_range",))
+def ssim_device(a, b, data_range: float = 1.0):
+    """:func:`ssim` as one jitted f32 computation on the arrays' device —
+    for frame sizes where the float64 host version is too slow (4K).
+    ``a``/``b``: [H, W] or [H, W, C]; returns a scalar array."""
+    if a.shape != b.shape:
+        raise ValueError(f"shape mismatch {a.shape} vs {b.shape}")
+    a = a.astype(jnp.float32)
+    b = b.astype(jnp.float32)
+    if a.ndim == 2:
+        a, b = a[..., None], b[..., None]
+    win = [float(v) for v in _gaussian_window()]
+    k = len(win)
+
+    def filt(x):
+        h, w = x.shape[0] - k + 1, x.shape[1] - k + 1
+        y = sum(win[i] * x[i:i + h] for i in range(k))
+        return sum(win[i] * y[:, i:i + w] for i in range(k))
+
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+    mx, my = filt(a), filt(b)
+    vx = filt(a * a) - mx * mx
+    vy = filt(b * b) - my * my
+    cov = filt(a * b) - mx * my
+    s = ((2 * mx * my + c1) * (2 * cov + c2)) / (
+        (mx * mx + my * my + c1) * (vx + vy + c2))
+    return jnp.mean(jnp.mean(s, axis=(0, 1)))

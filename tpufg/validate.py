@@ -2,7 +2,7 @@
 
 The reference's roadmap left "Evaluate quality and performance metrics"
 unchecked (readme.md:89); this tool checks it.  For each frame pair of a
-source it runs BOTH the production pipeline (Pallas/MXU kernels, bf16 or
+source it runs BOTH the production pipeline (fast path, bf16 or
 f32) and the exact oracle pipeline, and reports SSIM / PSNR / max |err| of
 the interpolated outputs plus the BASELINE SSIM >= 0.999 verdict.
 
@@ -41,7 +41,10 @@ def main(argv=None) -> int:
     from tpufg.config import ConfigError, EngineConfig, resolve_sizes
     from tpufg.engine.pipeline import make_interp_step
     from tpufg.io.sources import SourceError, open_source
+    from tpufg.utils.compile_cache import setup_compile_cache
     from tpufg.utils.quality import psnr, ssim
+
+    setup_compile_cache()
 
     try:
         source = open_source(args.input, args.input_width, args.input_height,
